@@ -68,7 +68,7 @@ def _blocks_sharded(pipe, files, sample_rate, hop, frame):
         print("padded batch too large for the sharded path; going sequential")
         for path, pcm in zip(files, pcms):
             # bucketed-compile path (one program per bucket, not per file
-            # length — remote compiles are minutes each); ships int16
+            # length); ships int16
             block, _ = pipe.process_signal_auto(pcm)
             jax.block_until_ready(block)
             yield pcm, block

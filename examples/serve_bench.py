@@ -124,7 +124,7 @@ def main() -> None:
         from sspv_tpu.serve import make_server
         from sspv_tpu.utils.cache import enable_persistent_cache
 
-        enable_persistent_cache(os.path.join(REPO, ".jax_cache"))
+        enable_persistent_cache()
         server = make_server("127.0.0.1", 0)
         threading.Thread(target=server.serve_forever, daemon=True).start()
         host, port = server.server_address[:2]

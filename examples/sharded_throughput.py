@@ -3,8 +3,8 @@
 
 Processes a batch of signals data-parallel over all visible devices via
 ``sspv_tpu.parallel.BatchPipeline`` and reports aggregate
-audio-seconds/sec. On a TPU pod slice the batch shards over chips; on this
-dev box it exercises the same code over a virtual CPU mesh:
+audio-seconds/sec. On a multi-GPU host the batch shards over the GPUs; on
+a CPU-only box it exercises the same code over a virtual CPU mesh:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu \
         python examples/sharded_throughput.py

@@ -187,8 +187,7 @@ def synth_formant_speech(duration_s: float, sr: int, snr_db: float,
             # midpoint between the previous syllable's targets and this
             # one's, the rest at this syllable's targets — a two-segment
             # formant ramp with filter state carried across the seam (no
-            # discontinuity click). ADVICE r3: the r3 version computed
-            # `mid` but applied the midpoint formants to the whole nucleus.
+            # discontinuity click).
             mid = (end - t) // 3 or 1
             v = np.empty(end - t)
             z1 = z2 = None
@@ -242,8 +241,7 @@ def confusion_breakdown(pred: np.ndarray, truth: np.ndarray,
                         frac: np.ndarray, fclass: np.ndarray,
                         e: np.ndarray, z: np.ndarray, h: np.ndarray,
                         cfg) -> dict:
-    """Frame-level error attribution (VERDICT r4 weak #5: the formant
-    proxy's ~82% quiet accuracy was unexplained). Splits the errors by
+    """Frame-level error attribution. Splits the errors by
     ground-truth structure — boundary frames (frame straddles a label
     edge), fricative vs voiced steady-state — and attributes false
     positives to hangover bleed (within hangover_on + release_off frames
@@ -348,8 +346,8 @@ def adaptive_threshold_trace(e: np.ndarray, z: np.ndarray, alpha_raw: float,
 
 
 def gate_diagnostics(block, truth: np.ndarray, cfg) -> dict:
-    """Per-gate decision rates split by ground truth (VERDICT r3 ask #2:
-    WHICH gate holds the detector on during structured noise). All rates
+    """Per-gate decision rates split by ground truth (WHICH gate holds the
+    detector on during structured noise). All rates
     are percentages; ``*_noise`` rows are the precision killers."""
     e = np.asarray(block.energy)
     z = np.asarray(block.zcr)
@@ -439,7 +437,7 @@ def main() -> int:
             frac, fclass = frame_class_info(
                 labels, classes, Config.FRAME_SIZE, Config.HOP_SIZE
             )
-            # Side-by-side oracle run (VERDICT r3 ask #2): the sequential
+            # Side-by-side oracle run: the sequential
             # reference automaton on the SAME per-frame features — a 100%
             # match proves the noise behavior is reference semantics
             # faithfully rebuilt, not a rebuild bug.

@@ -2,7 +2,7 @@
 //
 // The reference is pure Python (SURVEY.md §2: "Native components: NONE"), so
 // there is no parity obligation here; this library accelerates the only
-// host-side hot path the TPU design leaves: preparing raw int16 capture
+// host-side hot path the device design leaves: preparing raw int16 capture
 // buffers as float32 frame blocks for device upload (the engine's framing
 // step, sspv_tpu/runtime/engine.py::_take_frames). NumPy does this with a
 // fancy-index gather (two passes + an intermediate int16 matrix); here it is

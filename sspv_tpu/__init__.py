@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""sspv_tpu — TPU-native speech signal processing and visualization.
+"""sspv_tpu — speech signal processing and visualization on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-``qingxuandaoming/Speech-Signal-Processing-and-Visualization`` (mounted at
-``/root/reference``): real-time 16 kHz speech capture, per-frame time/frequency
-features (short-time energy, ZCR, autocorrelation, AMDF, Mel/MFCC, spectral
-entropy), fixed + adaptive voice-activity detection with hangover smoothing,
-live visualization, and ``.npz`` export — with the compute path redesigned as
-batched, fused TPU kernels instead of a per-frame Python loop.
+A from-scratch JAX/XLA rebuild of the capabilities of
+``qingxuandaoming/Speech-Signal-Processing-and-Visualization``: real-time
+16 kHz speech capture, per-frame time/frequency features (short-time energy,
+ZCR, autocorrelation, AMDF, Mel/MFCC, spectral entropy), fixed + adaptive
+voice-activity detection with hangover smoothing, live visualization, and
+``.npz`` export — with the compute path redesigned as batched, XLA-fused
+device programs (run on an NVIDIA GPU) instead of a per-frame Python loop.
 
 Public top-level surface matches the reference package
 (``real_time_voice_processing/__init__.py``): ``Config`` and

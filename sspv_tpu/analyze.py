@@ -3,7 +3,7 @@
 
 The reference's README documents an ``analyze_file.py`` utility that is
 absent from its snapshot (SURVEY.md §2 note); this module provides that
-capability on the TPU pipeline: decode a file, run the fused
+capability on the device pipeline: decode a file, run the fused
 frame→feature→VAD pipeline in one device call, print a summary, and
 optionally render the four-plot PNG and export the features.
 

@@ -2,7 +2,7 @@
 """Batch corpus processor: many audio files through the mesh-sharded pipeline.
 
 The reference processes one stream at a time (a desktop app); this is the
-offline production counterpart the TPU rebuild adds: walk files/directories,
+offline production counterpart this rebuild adds: walk files/directories,
 decode on host threads, group files into equal-shape device batches, and run
 each batch through ``parallel.BatchPipeline.process_batch_masked`` — a (B, L)
 zero-padded batch with B sharded over the mesh's "data" axis, every file
@@ -10,9 +10,10 @@ carrying its own VAD state, padded frames masked out. File lengths pad up to
 ``FeaturePipeline.SIGNAL_BUCKET_SECONDS`` buckets so an arbitrary corpus
 compiles a handful of programs (one per (batch, bucket) shape).
 
-On a single chip the same code runs with a 1-device mesh (the batch still
-amortizes dispatch overhead across files); on a pod slice the "data" axis
-fans out with zero cross-device communication (SURVEY.md §7 design stance).
+On a single GPU the same code runs with a 1-device mesh (the batch still
+amortizes dispatch overhead across files); over the GPUs of a host the
+"data" axis fans out with zero cross-device communication (SURVEY.md §7
+design stance).
 
 Usage:
     python -m sspv_tpu.batch INPUT... [--out-dir DIR] [--batch 8]
@@ -273,7 +274,7 @@ def process_corpus(
                     # extra rows carry lengths=0 and are fully masked, so the
                     # compute cost is nil while a ragged tail (1..batch_size-1
                     # files) would otherwise compile a fresh (B, bucket) program
-                    # each — minutes per shape on remote-compile hardware.
+                    # each.
                     b_pad = -(-batch_size // dp) * dp
                     batch = np.zeros((b_pad, target), np.int16)
                     lengths = np.zeros((b_pad,), np.int32)
@@ -284,9 +285,9 @@ def process_corpus(
                     if want_pitch:
                         # fused sharded program: features + VAD + VAD-gated
                         # pitch in ONE dispatch per batch — the two-call
-                        # alternative pays a second ~25 ms-RTT dispatch,
-                        # re-ships the (B, L) batch, and round-trips the VAD
-                        # gate through the host
+                        # alternative pays a second dispatch, re-ships the
+                        # (B, L) batch, and round-trips the VAD gate through
+                        # the host
                         block, _, f0_b, conf_b = bp.process_batch_masked_pitch(
                             batch, lengths
                         )

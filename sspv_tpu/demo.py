@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Offline batch demo (the reference's ``demo.py`` flow, TPU-batched).
+"""Offline batch demo (the reference's ``demo.py`` flow, batched on device).
 
 Synthesizes a 2 s labeled signal (silence → 100 Hz voiced tone → white-noise
 unvoiced → silence, demo.py:24-41), runs the WHOLE signal through the fused
@@ -21,7 +21,7 @@ from .signal_processing import SignalProcessing
 
 def demo_signal_processing():
     print("=" * 60)
-    print("Speech signal processing on TPU - demo")
+    print("Speech signal processing on device - demo")
     print("=" * 60)
 
     duration = 2

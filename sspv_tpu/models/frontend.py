@@ -82,7 +82,7 @@ class FrameTransform:
 
 
 class Spectrogram(FrameTransform):
-    """Windowed power spectrogram via the DFT-matmul pair (MXU-friendly)."""
+    """Windowed power spectrogram via the DFT-matmul pair."""
 
     def __init__(self, n_fft: int = 512, **kw):
         super().__init__(**kw)

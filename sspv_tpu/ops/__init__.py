@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
-"""Batched, jit-friendly signal-processing ops (the TPU compute layer).
+"""Batched, jit-friendly signal-processing ops (the device compute layer).
 
-Submodules mirror the reference's ``signal_processing`` package
-(``/root/reference/real_time_voice_processing/signal_processing/``) function
+Submodules mirror the reference's ``signal_processing`` package function
 -for-function, but operate on JAX arrays, are batched by construction, and
-feed the fused pipeline in ``pipeline.py`` / ``pallas_kernels.py``.
+feed the fused pipeline in ``pipeline.py``.
 """
 
 from .windows import hamming_window, hanning_window, rectangular_window, get_window

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Precomputed constant bases for the TPU feature pipeline.
+"""Precomputed constant bases for the device feature pipeline.
 
 Everything here runs once on the host in NumPy (float64 where it matters) and
-is closed over by jitted functions as device constants. This is the TPU-native
+is closed over by jitted functions as device constants. This is the batched
 replacement for the reference's on-the-fly SciPy/NumPy transforms:
 
 - real-input DFT as a pair of (frame_size, n_bins) matmul bases, so the fused
-  kernel can compute the power spectrum on the MXU without an FFT primitive
+  pipeline computes the power spectrum as a matmul, without an FFT primitive
   (reference computes ``np.fft.rfft(frames, n_fft)`` per call,
   frequency_features.py:147,183);
 - the Mel filterbank matrix with the reference's exact integer-bin triangle
@@ -150,11 +150,11 @@ def _merged_windowed_dft_cached(
 def merged_windowed_dft_bases(
     frame_size: int, n_fft: int, window_type: str
 ) -> tuple[np.ndarray, np.ndarray]:
-    """MXU-tiled repacking of :func:`windowed_dft_bases` for even ``n_fft``.
+    """Merged repacking of :func:`windowed_dft_bases` for even ``n_fft``.
 
-    The pair layout multiplies against two ``(frame, n_fft//2 + 1)`` bases;
-    on the MXU the odd 257-lane output pads to 3x128 tiles (33% wasted
-    lanes), and two of the 2x257 columns are known constants anyway (the
+    The pair layout multiplies against two ``(frame, n_fft//2 + 1)`` bases
+    with an odd 257-wide output, and two of the 2x257 columns are known
+    constants anyway (the
     Nyquist bin ``k = n_fft/2`` has an identically-zero sin column, and its
     cos column is just the +/-1-alternating window). This packs the live
     bins ``0..half-1`` of cos and sin side by side into one

@@ -10,11 +10,12 @@ Contracts match the reference (``signal_processing/frequency_features.py``):
 - ``calculate_spectral_entropy`` — normalized PSD clamped at 1e-12, Shannon
   entropy (natural log) normalized by ``log(num_bins)`` into [0, 1] (:161-196).
 
-TPU notes: the filterbank and DCT are host-precomputed constants (see
-``bases.py``) applied as matmuls with ``Precision.HIGHEST`` so the MXU runs
-them in full float32 (required for the <=1e-5 parity gate; default TPU matmul
-precision is bfloat16-based). The power spectrum uses XLA's native rFFT here;
-the fused Pallas path replaces it with a windowed DFT matmul pair.
+Implementation notes: the filterbank and DCT are host-precomputed constants
+(see ``bases.py``) applied as matmuls with ``Precision.HIGHEST`` so they run
+in full float32 (required for the <=1e-5 parity gate; an accelerator's
+default float32 matmul may round operands, e.g. TF32 on the GPU). The power
+spectrum uses XLA's native rFFT here; the fused pipeline
+(``pipeline.py``) uses a windowed DFT matmul pair instead.
 """
 
 from __future__ import annotations

@@ -5,15 +5,14 @@ The reference exposes the building blocks (autocorrelation + AMDF,
 time_features.py:52-104) and its docs describe ACF peak-picking for pitch;
 BASELINE.json's config list names "autocorrelation pitch-period detection on
 VAD-gated voiced segments" as a benchmark config. This module provides the
-batched TPU implementation:
+batched implementation:
 
 - ``pitch_from_frames``: per-frame F0 via the ACF peak in a plausible lag
   band (default 50..400 Hz), vectorized over all frames at once;
 - VAD gating: frames marked unvoiced get F0 = 0;
 - an optional normalized-ACF voicing confidence.
 
-All lag arithmetic is static; the argmax over the banded lag axis runs on
-the VPU.
+All lag arithmetic is static (resolved at trace time).
 """
 
 from __future__ import annotations
@@ -51,8 +50,7 @@ def _lag_band(sample_rate: int, fmin: float, fmax: float,
     Raises ``ValueError`` on an empty band (``fmax`` too low for the frame
     length: e.g. fmax=50 Hz at 16 kHz needs lag 320, but a 320-sample frame
     only has lags up to 319) — without this guard the argmax over a
-    zero-width band slice fails at trace time with an opaque error, and the
-    Pallas variant would silently return f0=inf garbage instead.
+    zero-width band slice fails at trace time with an opaque error.
     """
     lag_min = max(1, int(sample_rate / fmax))
     lag_max = min(frame_size - 1, int(sample_rate / fmin))
@@ -99,8 +97,8 @@ def pitch_from_frames(
     fmin, fmax : F0 search band in Hz
     acf_impl : "direct" (unrolled sliding sums — reference semantics,
         time_features.py:52-76) or "dft" (Wiener-Khinchin matmul form —
-        same values to ~1e-6 relative, ~max_lag-fold less HBM traffic on
-        TPU; the large-scale ``pitch_track_signal`` path defaults to it)
+        same values to ~1e-6 relative, ~max_lag-fold less memory traffic;
+        the large-scale ``pitch_track_signal`` path defaults to it)
 
     Returns
     -------
@@ -243,40 +241,19 @@ def pitch_track(
 # Frames per lax.scan step on the long-signal pitch path (mirrors
 # FeaturePipeline.SCAN_BLOCK_FRAMES). Pitch carries NO cross-frame state,
 # so the scan exists purely for memory: unscanned, the DFT/power/banded-ACF
-# intermediates materialize (F, 512)+(F, 256)+(F, lag_max+1) f32 in HBM —
-# ~5-6 GB for 4 h of audio, near single-chip HBM limits — while a 32k-frame
+# intermediates materialize (F, 512)+(F, 256)+(F, lag_max+1) f32 in device
+# memory — ~5-6 GB for 4 h of audio — while a 32k-frame
 # block holds ~150 MB regardless of signal length. Per-frame numerics are
 # unchanged (the matmul contraction axis is untouched; blocking only splits
 # the row axis).
 SCAN_BLOCK_FRAMES = 32768
 
 
-def _view_kernel_default() -> bool:
-    """Resolve ``use_kernel=None``: engage the fused Pallas pitch kernel on
-    the TPU backend when ``Config.TPU_VIEW_KERNEL`` is on (the same knob
-    that governs the pipeline's fused view kernel — both live in
-    ops/pallas_view.py and were adopted together after the r3 on-chip A/B:
-    pitch 1.51x faster with bit-identical F0 picks).
-
-    Read at trace time: a later Config/backend flip does not retrace an
-    already-cached (shape, statics) combo — pass ``use_kernel`` explicitly
-    to force a path per call site.
-    """
-    from .pipeline import _pallas_available
-
-    if not _pallas_available():
-        return False
-    from ..config import Config
-
-    return bool(getattr(Config, "TPU_VIEW_KERNEL", True))
-
-
 @functools.partial(
     jax.jit,
     static_argnames=(
         "frame_size", "hop_size", "sample_rate", "fmin", "fmax",
-        "min_confidence", "acf_impl", "precision", "use_kernel",
-        "scan_block",
+        "min_confidence", "acf_impl", "precision", "scan_block",
     ),
 )
 def pitch_track_signal(
@@ -289,8 +266,7 @@ def pitch_track_signal(
     fmax: float = 400.0,
     min_confidence: float = 0.3,
     acf_impl: str = "dft",
-    precision: str = "high",
-    use_kernel: bool | None = None,
+    precision: str = "highest",
     scan_block: int = -1,
 ):
     """VAD-gated pitch track over a whole signal, entirely on device:
@@ -305,35 +281,26 @@ def pitch_track_signal(
 
     This is the scale path (BASELINE.json configs[2]: "autocorrelation
     pitch-period detection on VAD-gated voiced segments"), so the ACF
-    defaults to the MXU matmul form.
+    defaults to the matmul form.
 
-    ``precision`` ("high" default — bf16_3x MXU passes) governs the hop-
-    phase DFT/inverse matmuls only. Measured on chip vs "highest"
-    (f32-accurate): F0 decisions bit-identical over a full 3600 s track,
-    confidence perturbed <=8e-6 (docs/benchmarks.md pitch A/B), ~1.6x
-    faster. The frames-path ``pitch_from_frames`` keeps HIGHEST sums.
+    ``precision`` (ops/precision.py names) governs the hop-phase
+    DFT/inverse matmuls only. The frames-path ``pitch_from_frames`` keeps
+    HIGHEST sums.
 
     ``scan_block``: frames per ``lax.scan`` step on the hop-phase path.
     ``-1`` (default) uses ``SCAN_BLOCK_FRAMES``; ``0`` disables blocking
     (one unscanned program — the pre-scan behavior). Signals at or under
     one block compile the direct form either way, so short/streaming
     callers never pay scan overhead.
-
-    ``use_kernel``: ``None`` (default) resolves via ``_view_kernel_default``
-    — the fused Pallas variant on the TPU backend when
-    ``Config.TPU_VIEW_KERNEL`` is on; an explicit bool forces a path
-    (CPU callers passing ``True`` get interpreter mode, as the kernel
-    parity tests do).
     """
     x = jnp.asarray(signal, dtype=jnp.float32)
     rows_in = None
     if x.ndim == 2:
         # (n+1, hop) signal-view rows formed on the HOST (a free reshape of
         # the contiguous 1-D signal). Uploading this layout directly lets the
-        # device program start from the tiled 2-D layout — the 1-D signal
-        # otherwise pays an on-device relayout copy (~3.7 ms and ~1.8 GB of
-        # HBM traffic per 4 h call; docs/benchmarks.md roofline). Only the
-        # hop-phase DFT path consumes rows; any other configuration flattens
+        # device program start from the 2-D layout — the 1-D signal
+        # otherwise pays an on-device relayout copy. Only the hop-phase DFT
+        # path consumes rows; any other configuration flattens
         # back (a device-side reshape — the rare path).
         if (
             acf_impl == "dft"
@@ -366,36 +333,10 @@ def pitch_track_signal(
         merged, nyq_b, inv_live, inv_nyq = _acf_dft_bases_merged(
             frame_size, lag_max
         )
-        # resolve once so non-canonical spellings that map to HIGHEST
-        # ("HIGHEST", whitespace, unknown names) gate the bf16 kernel off
-        # exactly like the canonical string
         hp = _resolve_precision(precision)
-        if use_kernel is None:
-            use_kernel = _view_kernel_default()
-        use_fused = use_kernel and hp != jax.lax.Precision.HIGHEST
 
         def from_rows(rows_blk):
             """(f+1, hop) signal-view rows -> ungated (f0, conf), (f,)."""
-            if use_fused:
-                # Fused Pallas variant: intermediates (DFT output, power,
-                # ACF) stay in VMEM; manual 3-pass bf16 matmuls
-                # (ops/pallas_view.py). Default since the r3 on-chip A/B
-                # (tools/viewkernel_ab.py --pitch: 1.51x faster,
-                # f0_match=1.0 over 3600 s). Gated off at "highest":
-                # the kernel's dots are 3-pass bf16 (== "high") and a
-                # strict-f32 pin must not silently downgrade.
-                from .pallas_view import fused_view_pitch
-
-                return fused_view_pitch(
-                    rows_blk,
-                    merged=merged,
-                    nyq_b=nyq_b,
-                    inv_live=inv_live,
-                    inv_nyq=inv_nyq,
-                    lag_min=lag_min,
-                    lag_max=lag_max,
-                    sample_rate=sample_rate,
-                )
             half = merged.shape[1] // 2
             top, bot = rows_blk[:-1], rows_blk[1:]
             m = jnp.matmul(top, jnp.asarray(merged[:hop]), precision=hp,
@@ -419,13 +360,9 @@ def pitch_track_signal(
             else x[: (n + 1) * hop].reshape(n + 1, hop)
         )
         b = SCAN_BLOCK_FRAMES if scan_block < 0 else int(scan_block)
-        # The scan exists purely to bound the XLA path's materialized
-        # (F, n_fft)/(F, lags) intermediates (see SCAN_BLOCK_FRAMES). The
-        # fused kernel keeps those in VMEM and grid-blocks internally, so
-        # scanning it only adds sequential-step overhead (r3 did; the r4
-        # roofline decomposition in docs/benchmarks.md measured the cost) —
-        # one kernel sweep over all frames instead.
-        if b and n > b and not use_fused:
+        # The scan exists purely to bound the materialized (F, n_fft) /
+        # (F, lags) intermediates (see SCAN_BLOCK_FRAMES).
+        if b and n > b:
             # Block the row axis with one-row overlap (frame i spans rows
             # i and i+1), exactly like _process_signal_view_impl; frames
             # past n land in the padded tail and are sliced off below.
@@ -459,8 +396,7 @@ def pitch_track_signal_jit(
     fmin: float = 50.0,
     fmax: float = 400.0,
     acf_impl: str = "dft",
-    precision: str = "high",
-    use_kernel: bool | None = None,
+    precision: str = "highest",
 ):
     """Jitted ``(signal, vad, min_confidence) -> (f0, confidence)`` for these
     static parameters, cached so repeated callers (the HTTP serving layer,
@@ -472,17 +408,13 @@ def pitch_track_signal_jit(
     comparison, not the lag-band geometry), so confidence thresholds never
     multiply the compile count — important for the serving layer, where the
     threshold is client-controlled and each extra static value would cost a
-    minutes-long remote compile.
+    compile.
     """
     # normalize the key here so call-spelling differences (kwargs vs
     # defaults omitted) cannot create duplicate jitted callables.
-    # ``use_kernel=None`` stays None in the key (one shared callable whose
-    # kernel choice resolves per-backend at trace time) rather than being
-    # resolved here, so explicit bools get their own cache entries.
     return _pitch_jit_cached(
         int(frame_size), int(hop_size), int(sample_rate),
         float(fmin), float(fmax), str(acf_impl), str(precision),
-        None if use_kernel is None else bool(use_kernel),
     )
 
 
@@ -497,8 +429,7 @@ def pitch_track_signal_gated(
     fmin: float = 50.0,
     fmax: float = 400.0,
     acf_impl: str = "dft",
-    precision: str = "high",
-    use_kernel: bool | None = None,
+    precision: str = "highest",
 ):
     """Traceable ``pitch_track_signal`` with a TRACED confidence threshold.
 
@@ -508,8 +439,8 @@ def pitch_track_signal_gated(
     keep aperiodic frames whose normalized ACF dips below 0 — an inner 0.0
     would have zeroed those irrecoverably). Because the threshold is traced,
     it never multiplies the compile count — important wherever it is
-    client-controlled (serving) and a static value would cost a minutes-long
-    remote compile. This is THE shared gate definition: every fused program
+    client-controlled (serving) and a static value would cost a compile.
+    This is THE shared gate definition: every fused program
     (`FeaturePipeline.process_signal_pitch_auto`,
     `BatchPipeline.process_batch_masked_pitch`) and the jitted two-call
     wrapper below compose it, so the bit-identity contract between them
@@ -520,7 +451,7 @@ def pitch_track_signal_gated(
         frame_size=frame_size, hop_size=hop_size,
         sample_rate=sample_rate, fmin=fmin, fmax=fmax,
         min_confidence=float("-inf"), acf_impl=acf_impl,
-        precision=precision, use_kernel=use_kernel,
+        precision=precision,
     )
     gate = (jnp.asarray(vad) > 0) & (
         conf >= jnp.asarray(min_confidence, jnp.float32)
@@ -528,13 +459,11 @@ def pitch_track_signal_gated(
     return jnp.where(gate, f0, 0.0).astype(jnp.float32), conf
 
 
-@functools.lru_cache(maxsize=512)  # serve's band grid alone permits 153
-# pairs, and the use_kernel key axis (None/False/True) triples the
-# worst case to ~459 — sized so a full sweep cannot thrash
+@functools.lru_cache(maxsize=256)  # serve's band grid alone permits 153
+# pairs — sized so a full sweep cannot thrash
 def _pitch_jit_cached(
     frame_size: int, hop_size: int, sample_rate: int,
     fmin: float, fmax: float, acf_impl: str, precision: str,
-    use_kernel: bool | None = None,
 ):
     def impl(signal, vad, min_confidence):
         return pitch_track_signal_gated(
@@ -542,7 +471,6 @@ def _pitch_jit_cached(
             frame_size=frame_size, hop_size=hop_size,
             sample_rate=sample_rate, fmin=fmin, fmax=fmax,
             acf_impl=acf_impl, precision=precision,
-            use_kernel=use_kernel,
         )
 
     return jax.jit(impl)

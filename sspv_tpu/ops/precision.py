@@ -4,14 +4,16 @@
 One map from the public precision knob names (``Config.TPU_MATMUL_PRECISION``,
 ``FeatureConfig.precision``, the pitch/pipeline ``precision=`` arguments) to
 ``jax.lax.Precision`` values, so every matmul path resolves the knob
-identically. Semantics on TPU:
+identically. What each name means for a float32 matmul on an NVIDIA GPU
+(XLA's GPU backend; on the CPU backend all three compute in float32):
 
-- ``"highest"``: f32-accurate (6 bf16 passes on current MXUs);
-- ``"high"``: bf16_3x — the shipped pipeline default (see CLAUDE.md);
-- ``"default"``: one bf16 pass — fails the 1e-5 parity gate, opt-in only.
+- ``"highest"``: float32 arithmetic throughout — no tensor-core rounding;
+- ``"high"``: one TF32 pass on the tensor cores (operands rounded to a
+  10-bit mantissa, float32 accumulation);
+- ``"default"``: the backend's default for float32 operands, which on the
+  GPU is also TF32.
 
-Unknown names resolve to HIGHEST (the safe end), matching the historical
-behavior of the inlined maps this module replaces.
+Unknown names resolve to HIGHEST (the safe end).
 """
 
 from __future__ import annotations

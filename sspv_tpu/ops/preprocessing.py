@@ -10,7 +10,7 @@ preprocessing.py:14-92``):
   ``num_frames = 1 + ceil((len - frame_size)/hop_size)`` with zero padding of
   the tail, and an empty ``(0, frame_size)`` result for degenerate input.
 
-TPU notes: all shape arithmetic is static (resolved at trace time). Framing
+Implementation notes: all shape arithmetic is static (resolved at trace time). Framing
 avoids a general gather when ``frame_size % hop_size == 0`` by slicing
 ``frame_size//hop_size`` shifted views of a ``(num_hops, hop)`` reshape and
 concatenating — XLA turns that into cheap strided copies instead of a gather.

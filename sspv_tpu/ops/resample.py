@@ -6,7 +6,7 @@ from the pipeline rate (``rtvp/runtime/audio_source.py:285-298``:
 ``resample_poly(x.astype(float32), up, down)`` then an int16 clip). That is
 fine for one mic stream, but for batch corpus processing every file pays a
 host FIR pass before the signal ever reaches the device. This module moves
-the same computation onto the TPU as K shifted row-view MXU matmuls (no
+the same computation onto the device as K shifted row-view matmuls (no
 gather — see ``_core`` for why the gather formulation was abandoned):
 
 - filter design IS ``scipy.signal.firwin(2*10*max(up,down)+1,
@@ -58,10 +58,9 @@ _BUCKET_MIN = 1 << 14
 def _bucket_len(n: int) -> int:
     """Quantize a signal length up to the {2^k, 1.5*2^k} grid (min 2^14).
 
-    ``jax.jit`` caches one executable per input *shape*, and TPU
-    first-compiles go through a remote service at minutes per program — so
-    resampling a corpus of arbitrary-length files at exact shapes would pay
-    a fresh multi-minute compile per distinct length. Padding up to this
+    ``jax.jit`` caches one executable per input *shape* — so resampling a
+    corpus of arbitrary-length files at exact shapes would pay a fresh
+    compile per distinct length. Padding up to this
     grid bounds the program count per (up, down) pair to ~2 per octave
     (<= 32 across 1 s..24 h) at < 50 % wasted samples, and zero padding is
     exactly SciPy's constant-zero signal extension, so the first
@@ -128,23 +127,22 @@ def _core(signal, weights, *, up, down, s_lo, n_pre_remove, row_block,
     """Jit-traced resampler body: pad → K shifted row-view matmuls.
 
     The naive lowering — gather each output group's ``W``-wide window into
-    an ``(A, W)`` matrix — compiles to an XLA dynamic-gather that measures
-    catastrophically slow on TPU for narrow windows (48 kHz→16 kHz: ~200 ms
-    per 8192-row step). Instead, pad the signal so the window start is a
+    an ``(A, W)`` matrix — compiles to an XLA dynamic gather that moves W
+    copies of every sample. Instead, pad the signal so the window start is a
     multiple of ``down``; then ``reshape(-1, down)`` makes every window
     exactly ``K = ceil(W/down)`` consecutive rows, and the banded matmul
     decomposes into K plain matmuls on SHIFTED CONTIGUOUS VIEWS:
 
         y[a] = sum_k  X3[a + q + k] @ M[k*down : (k+1)*down]
 
-    No gather, no sample duplication in HBM — each term is a strided view
-    feeding the MXU directly. K is small (2 for 44.1 kHz→16 kHz, 22 for
+    No gather, no sample duplication in device memory — each term is a
+    strided view feeding a matmul directly. K is small (2 for 44.1 kHz→16 kHz, 22 for
     48 kHz→16 kHz), and XLA fuses the accumulation.
 
     ``signal`` is 1-D (any real dtype; cast to f32 like ``_resample_to``
     does before calling SciPy). All shape arithmetic is static. Groups of
     ``up`` outputs are scan-blocked (``row_block`` rows per step, 0 = auto
-    by bytes) so HBM stays flat on hour-long signals.
+    by bytes) so device memory stays flat on hour-long signals.
     """
     import jax.numpy as jnp
     from jax import lax
@@ -285,7 +283,7 @@ def resample_to_rate_device(arr, src_sr: int, dst_sr: int, *,
     (the pad is host-side zeros; the true-length output is sliced back out
     after transfer, costing no extra device dispatch), so a corpus of
     arbitrary-length files compiles a bounded program set instead of one
-    multi-minute remote TPU compile per distinct length. ``bucket=False``
+    compile per distinct length. ``bucket=False``
     runs the exact shape (useful to pin bucketed == unbucketed in tests).
 
     Bit-parity with the host path is near-total but not guaranteed: both

@@ -12,7 +12,7 @@ Contracts match the reference (``signal_processing/time_features.py``):
 - AMDF: ``mean(|frames[:, :-lag] - frames[:, lag:]|)`` for lag 1..max_lag,
   shape ``(num_frames, max_lag)`` (:79-104).
 
-TPU notes: the lag loops are unrolled at trace time (``max_lag`` is static),
+Implementation notes: the lag loops are unrolled at trace time (``max_lag`` is static),
 producing a fused stack of vectorized multiply-reduces — no per-frame Python.
 """
 
@@ -74,7 +74,7 @@ def _acf_dft_bases(frame_size: int, max_lag: int):
 
     ``nfft >= frame_size + max_lag`` makes the circular correlation equal the
     linear one for lags 0..max_lag (no wrap-around), rounded up to a multiple
-    of 128 so every matmul operand tiles the MXU lanes cleanly.
+    of 128 so every matmul operand has an aligned width.
     """
     import numpy as np
 
@@ -102,7 +102,7 @@ def _acf_dft_bases(frame_size: int, max_lag: int):
 
 @functools.lru_cache(maxsize=8)
 def _acf_dft_bases_merged(frame_size: int, max_lag: int):
-    """MXU-tiled repacking of :func:`_acf_dft_bases` (same trick as
+    """Merged repacking of :func:`_acf_dft_bases` (same trick as
     ``bases.merged_windowed_dft_bases``): the live cos/sin bins pack into one
     ``(frame_size, nfft)`` basis whose lane dimension is the 128-rounded
     ``nfft`` itself, and the Nyquist bin (sin column identically zero, cos
@@ -132,15 +132,15 @@ def _acf_dft_bases_merged(frame_size: int, max_lag: int):
 @functools.partial(jax.jit, static_argnames=("max_lag",))
 def autocorrelation_via_dft(frames: jnp.ndarray, max_lag: int) -> jnp.ndarray:
     """Short-time autocorrelation 0..max_lag via Wiener-Khinchin as three
-    MXU matmuls: power spectrum from a real-DFT matmul pair, then an
+    matmuls: power spectrum from a real-DFT matmul pair, then an
     inverse-cosine matmul back to the lag domain.
 
     Same contract as :func:`calculate_short_time_autocorrelation`; values
     agree at the ~1e-6 relative level (float32 matmuls at HIGHEST precision
-    vs the direct sliding sums — tests pin the NMSE). Preferable on TPU for
-    large lag counts: the unrolled direct form re-reads the frame block once
-    per lag (~max_lag x the HBM traffic), while this form moves each operand
-    once and puts the arithmetic on the MXU.
+    vs the direct sliding sums — tests pin the NMSE). Preferable for large
+    lag counts: the unrolled direct form re-reads the frame block once per
+    lag (~max_lag x the memory traffic), while this form moves each operand
+    once and puts the arithmetic in matrix units.
     """
     x = jnp.asarray(frames, dtype=jnp.float32)
     num_frames = x.shape[0] if x.ndim == 2 else 0

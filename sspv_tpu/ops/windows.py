@@ -6,9 +6,9 @@ peak ~= 1, empty array for non-positive lengths — matching the reference
 semantics (``signal_processing/windows.py:16-74``).
 
 Windows are pure host-side constants: they are generated once in NumPy and
-closed over by jitted TPU functions, exactly like the reference precomputes
-its window once at engine construction (engine.py:83). There is nothing to
-gain from computing a 320-float cosine on the MXU.
+closed over by jitted device functions, exactly like the reference
+precomputes its window once at engine construction (engine.py:83). There is
+nothing to gain from computing a 320-float cosine on the device.
 """
 
 from __future__ import annotations

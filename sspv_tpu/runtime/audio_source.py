@@ -5,7 +5,7 @@ Implements the reference's 3-method ``AudioSource`` contract
 (``runtime/audio_source.py:32-45``): ``open()``, ``read(n) -> int16 ndarray``
 (empty at EOF), ``close()``, with ``sample_rate``/``channels`` attributes and
 an ``exhausted`` flag on file-like sources. This layer is deliberately plain
-Python — it is I/O, not compute; the TPU pipeline consumes its int16 chunks.
+Python — it is I/O, not compute; the device pipeline consumes its int16 chunks.
 
 Sources:
 - ``PyAudioSource``   — live microphone (lazy ``pyaudio`` import in open()).
@@ -173,7 +173,12 @@ class FileAudioSource(AudioSource):
         arr: Optional[np.ndarray] = None
         sr = 0
         errors = []
-        for decoder in (_decode_soundfile, _decode_audioread, _decode_wave_stdlib):
+        ladder = (_decode_soundfile, _decode_audioread, _decode_wave_stdlib)
+        if self._file_path.lower().endswith(".wav"):
+            # PCM WAV needs nothing beyond the standard library; the optional
+            # decoders stay the fallback for formats ``wave`` cannot read
+            ladder = (_decode_wave_stdlib, _decode_soundfile, _decode_audioread)
+        for decoder in ladder:
             try:
                 arr, sr = decoder(self._file_path)
                 break

@@ -2,7 +2,7 @@
 """Standalone assert-based self-check (no pytest needed).
 
 The reference ships a printed self-test predating its pytest suite
-(``rtvp/test_system.py``); this is the equivalent smoke check for the TPU
+(``rtvp/test_system.py``); this is the equivalent smoke check for the JAX
 stack: windows, energy, ZCR-vs-theory, normalized ACF, VAD truth table,
 framing count formula, and one fused-pipeline run. Run directly:
 

@@ -39,7 +39,7 @@ def _qt_available() -> bool:
 class VisualizationUI:
     """Front-door UI class: Qt when available, headless otherwise."""
 
-    def __init__(self, runtime, title: str = "Real-time speech processing (TPU)",
+    def __init__(self, runtime, title: str = "Real-time speech processing",
                  headless: bool | None = None, **headless_kwargs):
         self.runtime = runtime
         use_headless = headless if headless is not None else not _qt_available()

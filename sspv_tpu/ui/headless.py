@@ -38,7 +38,7 @@ class HeadlessVisualizer:
         Where to write the final PNG (None skips rendering).
     """
 
-    def __init__(self, runtime, title: str = "Real-time speech processing (TPU)",
+    def __init__(self, runtime, title: str = "Real-time speech processing",
                  duration: float | None = None,
                  snapshot_path: str | None = "sspv_snapshot.png"):
         self.runtime = runtime

@@ -44,7 +44,7 @@ QGroupBox::title { subcontrol-origin: margin; left: 8px; }
 class QtVisualizer:
     """Interactive pyqtgraph window over the runtime contract."""
 
-    def __init__(self, runtime, title: str = "Real-time speech processing (TPU)"):
+    def __init__(self, runtime, title: str = "Real-time speech processing"):
         import pyqtgraph as pg
         from pyqtgraph.Qt import QtCore, QtWidgets
 

@@ -4,8 +4,7 @@
     python -m sspv_tpu.warmup [--offline all|first|none] [--stream all|first|none]
                               [--pitch] [--engine] [--batch B] [--long SECONDS]
 
-On hardware where XLA compilation is served by a remote compile service, a
-cold program costs minutes at first dispatch; every entry point enables the
+A cold program compiles at first dispatch; every entry point enables the
 shared persistent cache (``utils/cache.py``), but something still has to
 compile each program once. The serving layer warms itself
 (``RTP_SERVE_WARMUP``); batch jobs, engine deployments, and fresh checkouts

@@ -144,7 +144,7 @@ def test_matmul_precision_knob():
     from sspv_tpu.config import Config
     from sspv_tpu.ops.pipeline import FeatureConfig, FeaturePipeline
 
-    assert FeatureConfig.from_config(Config).precision == "high"
+    assert FeatureConfig.from_config(Config).precision == "highest"
     for name, want in [
         ("highest", jax.lax.Precision.HIGHEST),
         ("high", jax.lax.Precision.HIGH),
@@ -161,19 +161,15 @@ def test_view_layout_knob_reaches_pipeline(monkeypatch):
     from sspv_tpu.config import Config
     from sspv_tpu.ops.pipeline import FeatureConfig
 
-    orig = (Config.TPU_VIEW_LAYOUT, Config.TPU_VIEW_KERNEL)
+    orig = Config.TPU_VIEW_LAYOUT
     try:
         assert FeatureConfig.from_config(Config).view_layout == "hop_phase"
-        # default ON since the r3 on-chip A/B (config.py TPU_VIEW_KERNEL)
-        assert FeatureConfig.from_config(Config).view_kernel is True
         monkeypatch.setenv("RTP_TPU_VIEW_LAYOUT", "frame_parity")
-        monkeypatch.setenv("RTP_TPU_VIEW_KERNEL", "0")
         Config.load_from_env("RTP_")
         assert Config.TPU_VIEW_LAYOUT == "frame_parity"
         assert FeatureConfig.from_config(Config).view_layout == "frame_parity"
-        assert FeatureConfig.from_config(Config).view_kernel is False
     finally:
-        Config.TPU_VIEW_LAYOUT, Config.TPU_VIEW_KERNEL = orig
+        Config.TPU_VIEW_LAYOUT = orig
 
 
 def test_env_tuple_override(monkeypatch):

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """The concurrent-serving example must run end-to-end on the CPU backend in
 both modes: flood (throughput ceiling) and paced (live-cadence capacity).
-These are the harnesses behind docs/benchmarks.md's serving section — keep
-them executable, not just committed."""
+These are the serving harnesses — keep them executable, not just
+committed."""
 
 import json
 import os
@@ -37,7 +37,7 @@ def test_paced_mode_cpu():
     # live-cadence: the paced source sleeps at real-time cadence, so the wall
     # cannot undershoot the audio duration — a deterministic pacing check.
     # Upper bounds (realtime_ok, wall < 12 s) are load-sensitive on a busy CI
-    # host and belong to the measured TPU runs in docs/benchmarks.md, not the
-    # default suite; here we only require the field to be reported.
+    # host and belong to measured runs on the card, not the default suite;
+    # here we only require the field to be reported.
     assert r["wall_s"] >= 5.0
     assert isinstance(r["realtime_ok"], bool)

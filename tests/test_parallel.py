@@ -2,6 +2,7 @@
 """Multi-device sharding: data-parallel batch and sequence-sharded long-signal
 paths must agree with the single-device pipeline exactly."""
 
+import pytest
 import numpy as np
 import jax
 from jax.sharding import Mesh
@@ -434,71 +435,11 @@ def test_batch_masked_unequal_lengths():
         assert int(states.count[i]) == int(want_state.count) == true_n
 
 
-def test_long_kernel_shardmap_route():
-    """process_long's shard_map fused-kernel route (VERDICT r4 #4): Pallas
-    has no GSPMD partitioning rule, so the mesh feature stage runs the fused
-    view kernel per shard under shard_map MANUAL partitioning. Opt-in on CPU
-    (interpret-mode kernel); must trace the kernel stage (counter), match the
-    XLA mesh path at kernel-accuracy level, and keep VAD decisions identical.
-    """
-    from sspv_tpu.parallel import mesh as mesh_mod
-
-    rng = np.random.default_rng(11)
-    mesh = make_mesh(8)
-    bp_x = BatchPipeline(mesh)  # CPU default: XLA view path
-    bp_k = BatchPipeline(mesh, long_kernel=True)
-    assert not bp_x._long_kernel and bp_k._long_kernel
-
-    # 1203 frames: not a multiple of 8 shards -> exercises the fpb pad +
-    # seam gather; > history_len so the blocked VAD pad path runs too
-    n_frames = 1203
-    sig = rng.normal(0, 3000, ((n_frames - 1) * 160 + 320,)).astype(np.float32)
-    sig[: 16000] = np.sin(2 * np.pi * 220 * np.arange(16000) / 16000) * 8000
-
-    before = mesh_mod.MESH_KERNEL_TRACE_COUNT
-    bx, sx = bp_x.process_long(sig)
-    assert mesh_mod.MESH_KERNEL_TRACE_COUNT == before  # XLA route untouched
-    bk, sk = bp_k.process_long(sig)
-    assert mesh_mod.MESH_KERNEL_TRACE_COUNT > before
-    jax.block_until_ready(bk)
-
-    for k in ("energy", "zcr", "entropy"):
-        a = np.asarray(getattr(bx, k), np.float64)
-        b = np.asarray(getattr(bk, k), np.float64)
-        nmse = np.mean((a - b) ** 2) / max(np.mean(a**2), 1e-12)
-        assert nmse < 1e-10, (k, nmse)
-    a = np.asarray(bx.mfcc, np.float64)
-    b = np.asarray(bk.mfcc, np.float64)
-    assert np.mean((a - b) ** 2) / np.mean(a**2) < 1e-8
-    np.testing.assert_array_equal(np.asarray(bx.vad), np.asarray(bk.vad))
-    np.testing.assert_array_equal(
-        np.asarray(bx.vad_adaptive), np.asarray(bk.vad_adaptive)
-    )
-    # carried VAD state agrees (same prefix machinery on both routes)
-    assert int(sx.count) == int(sk.count)
-
-
-def test_long_kernel_gates():
-    """The shard_map kernel route must disengage for unsupported geometry
-    (frame != 2*hop) and for pinned-highest precision, like the single-chip
-    kernel gates."""
-    mesh = make_mesh(8)
-    bp = BatchPipeline(
-        mesh, FeatureConfig(frame_size=400, hop_size=160), long_kernel=True
-    )
-    assert not bp._long_kernel
-    bp2 = BatchPipeline(
-        mesh, FeatureConfig(precision="highest"), long_kernel=True
-    )
-    assert not bp2._long_kernel
-
-
 def test_process_long_pitch_both_routes():
     """process_long_pitch: one mesh program for features+VAD+gated pitch.
-    XLA route must be bit-identical to its two-call construction (the
-    CLAUDE.md same-path invariant); the shard_map kernel route must agree
-    with the single-chip fused pitch kernel bit-exactly (per-frame math is
-    grid-blocking-invariant) and keep VAD decisions identical."""
+    It must be bit-identical to its two-call construction (the CLAUDE.md
+    same-path invariant): process_long, then the shared gated pitch track
+    on the same VAD."""
     import jax.numpy as jnp
 
     from sspv_tpu.ops.pitch import pitch_track_signal_gated
@@ -520,72 +461,49 @@ def test_process_long_pitch_both_routes():
         np.asarray(block_f.vad), np.asarray(block_2.vad)
     )
     f0_2, conf_2 = jax.jit(
-        lambda s, v, mc: pitch_track_signal_gated(s, v, mc, use_kernel=False)
+        lambda s, v, mc: pitch_track_signal_gated(s, v, mc)
     )(sig, block_2.vad, jnp.float32(0.3))
     np.testing.assert_array_equal(np.asarray(f0_f), np.asarray(f0_2))
     np.testing.assert_array_equal(np.asarray(conf_f), np.asarray(conf_2))
-
-    # kernel route (CPU opt-in, interpret-mode Pallas under shard_map)
-    bp_k = BatchPipeline(mesh, long_kernel=True)
-    block_k, _, f0_k, conf_k = bp_k.process_long_pitch(sig)
-    np.testing.assert_array_equal(
-        np.asarray(block_k.vad), np.asarray(block_f.vad)
-    )
-    # single-chip fused pitch kernel on the same gate: per-frame kernel
-    # math is invariant to the grid/shard split -> bit-identical
-    f0_1, conf_1 = jax.jit(
-        lambda s, v, mc: pitch_track_signal_gated(s, v, mc, use_kernel=True)
-    )(sig, block_k.vad, jnp.float32(0.3))
-    np.testing.assert_array_equal(np.asarray(f0_k), np.asarray(f0_1))
-    np.testing.assert_array_equal(np.asarray(conf_k), np.asarray(conf_1))
     # voiced frames exist and carry F0 in the band
-    voiced = np.asarray(f0_k)[np.asarray(f0_k) > 0]
+    voiced = np.asarray(f0_f)[np.asarray(f0_f) > 0]
     assert voiced.size > 20
     assert np.all((voiced >= 50.0) & (voiced <= 400.0))
 
 
-def test_long_kernel_edge_sizes():
-    """Seam/pad correctness of BOTH process_long routes at awkward frame
-    counts: n smaller than one shard's minimum block, n not divisible by
-    the shard count, n exactly divisible. Decisions must match the
-    single-chip pipeline bit-exactly at every size — this is the
-    regression test for the GSPMD conv trailing-sum mis-partitioning
-    (odd small n flipped nearly every decision on the XLA mesh route
-    until it was switched to the padded blocked-VAD tail;
-    pipeline._process_signal_view_impl ``force_full_vad``)."""
-    rng = np.random.default_rng(31)
+@pytest.mark.parametrize("n_frames", [17, 99, 1024])
+def test_long_edge_sizes(n_frames):
+    """Seam/pad correctness of process_long at awkward frame counts: n
+    smaller than one shard's minimum block, n not divisible by the shard
+    count, n exactly divisible. Decisions must match the single-device
+    pipeline bit-exactly at every size — the regression test for the GSPMD
+    conv trailing-sum mis-partitioning (odd small n flipped nearly every
+    decision on the mesh route until it was switched to the padded
+    blocked-VAD tail; pipeline._process_signal_view_impl
+    ``force_full_vad``)."""
+    rng = np.random.default_rng(31 + n_frames)
     mesh = make_mesh(8)
-    bp_x = BatchPipeline(mesh)
-    bp_k = BatchPipeline(mesh, long_kernel=True)
-    pipe = bp_x.pipe
-    for n_frames in (17, 99, 1024):
-        sig = rng.normal(
-            0, 3000, ((n_frames - 1) * 160 + 320,)
-        ).astype(np.float32)
-        ref, _ = pipe.process_signal(sig)
-        bx, _ = bp_x.process_long(sig)
-        bk, _ = bp_k.process_long(sig)
-        assert np.asarray(bk.energy).shape == (n_frames,)
-        for name, blk in (("xla", bx), ("kernel", bk)):
-            np.testing.assert_array_equal(
-                np.asarray(blk.vad), np.asarray(ref.vad)[:n_frames],
-                err_msg=f"{name} n={n_frames}",
-            )
-            np.testing.assert_array_equal(
-                np.asarray(blk.vad_adaptive),
-                np.asarray(ref.vad_adaptive)[:n_frames],
-                err_msg=f"{name} adaptive n={n_frames}",
-            )
-        a = np.asarray(bx.mfcc, np.float64)
-        b = np.asarray(bk.mfcc, np.float64)
-        assert np.mean((a - b) ** 2) / max(np.mean(a**2), 1e-12) < 1e-8
+    bp = BatchPipeline(mesh)
+    sig = rng.normal(0, 3000, ((n_frames - 1) * 160 + 320,)).astype(np.float32)
+    ref, _ = bp.pipe.process_signal(sig)
+    blk, _ = bp.process_long(sig)
+    assert np.asarray(blk.energy).shape == (n_frames,)
+    np.testing.assert_array_equal(
+        np.asarray(blk.vad), np.asarray(ref.vad)[:n_frames]
+    )
+    np.testing.assert_array_equal(
+        np.asarray(blk.vad_adaptive), np.asarray(ref.vad_adaptive)[:n_frames]
+    )
+    a = np.asarray(ref.mfcc, np.float64)
+    b = np.asarray(blk.mfcc, np.float64)
+    assert np.mean((a - b) ** 2) / max(np.mean(a**2), 1e-12) < 1e-10
 
 
 def test_long_nonview_edge_sizes():
     """The non-view mesh fallback (frame != 2*hop) at odd, non-shard
     -divisible frame counts: decisions must match the single-chip frames
     path. Regression for the same GSPMD conv-fallback hazard as
-    test_long_kernel_edge_sizes, on the _process_block_impl-style route
+    test_long_edge_sizes, on the _process_block_impl-style route
     (mesh now runs the padded blocked VAD tail there too)."""
     rng = np.random.default_rng(5)
     c = FeatureConfig(frame_size=400, hop_size=160)
@@ -637,14 +555,12 @@ def test_batch_seq8_edge_sizes():
 
 def test_long_pitch_edge_sizes():
     """process_long_pitch at an odd, non-shard-divisible frame count: VAD
-    decisions (and therefore the pitch gate) must match single-chip on
-    both routes — same GSPMD conv regression class as
-    test_long_kernel_edge_sizes."""
+    decisions (and therefore the pitch gate) must match single-device —
+    same GSPMD conv regression class as test_long_edge_sizes."""
     rng = np.random.default_rng(17)
     mesh = make_mesh(8)
-    bp_x = BatchPipeline(mesh)
-    bp_k = BatchPipeline(mesh, long_kernel=True)
-    pipe = bp_x.pipe
+    bp = BatchPipeline(mesh)
+    pipe = bp.pipe
     n_frames = 99
     t = np.arange((n_frames - 1) * 160 + 320, dtype=np.float32) / 16000.0
     sig = (
@@ -652,12 +568,10 @@ def test_long_pitch_edge_sizes():
         + rng.normal(0, 300, t.shape)
     ).astype(np.float32)
     ref, _ = pipe.process_signal(sig)
-    for name, bp in (("xla", bp_x), ("kernel", bp_k)):
-        blk, _, f0, conf = bp.process_long_pitch(sig)
-        np.testing.assert_array_equal(
-            np.asarray(blk.vad), np.asarray(ref.vad)[:n_frames],
-            err_msg=name,
-        )
-        voiced = np.asarray(f0)[np.asarray(f0) > 0]
-        assert voiced.size > 20, name
-        assert np.all(np.abs(voiced - 120.0) < 12.0), name
+    blk, _, f0, conf = bp.process_long_pitch(sig)
+    np.testing.assert_array_equal(
+        np.asarray(blk.vad), np.asarray(ref.vad)[:n_frames]
+    )
+    voiced = np.asarray(f0)[np.asarray(f0) > 0]
+    assert voiced.size > 20
+    assert np.all(np.abs(voiced - 120.0) < 12.0)

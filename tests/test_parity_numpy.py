@@ -104,7 +104,7 @@ def test_autocorrelation_parity(frames):
 
 
 def test_autocorrelation_dft_parity(frames):
-    """The MXU matmul ACF (Wiener-Khinchin) against the same NumPy oracle as
+    """The matmul ACF (Wiener-Khinchin) against the same NumPy oracle as
     the direct form — the fast path must satisfy the identical parity gate."""
     from sspv_tpu.ops.time_features import autocorrelation_via_dft
 
@@ -204,7 +204,7 @@ def test_pipeline_features_parity(speech_like):
 
 
 def test_dft_layout_merged_vs_pair(speech_like):
-    """The MXU-tiled merged DFT basis (bases.merged_windowed_dft_bases) and
+    """The merged DFT basis (bases.merged_windowed_dft_bases) and
     the pair layout compute the same per-bin dot products; compiled
     reductions may reassociate, so agreement is pinned tightly but not
     bitwise. Both layouts must independently clear the oracle gates."""
@@ -212,8 +212,8 @@ def test_dft_layout_merged_vs_pair(speech_like):
 
     raw = oracle.framing(speech_like, 320, 160, np.ones(320, np.float32))
     windowed = (raw * oracle.hamming(320)).astype(np.float32)
-    pm = FeaturePipeline(FeatureConfig(dft_layout="merged", use_pallas=False))
-    pp = FeaturePipeline(FeatureConfig(dft_layout="pair", use_pallas=False))
+    pm = FeaturePipeline(FeatureConfig(dft_layout="merged"))
+    pp = FeaturePipeline(FeatureConfig(dft_layout="pair"))
     assert pm._wm is not None and pp._wm is None
     fa, fb = pm.features(raw), pp.features(raw)
     for key in ("energy", "zcr", "entropy", "mfcc"):
@@ -250,8 +250,7 @@ def test_dft_layout_odd_nfft_falls_back_to_pair():
     from sspv_tpu.ops.pipeline import FeaturePipeline, FeatureConfig
 
     pipe = FeaturePipeline(
-        FeatureConfig(dft_layout="merged", n_fft=511, entropy_n_fft=511,
-                      use_pallas=False)
+        FeatureConfig(dft_layout="merged", n_fft=511, entropy_n_fft=511)
     )
     assert pipe._wm is None  # pair bases serve odd n_fft
     rng = np.random.default_rng(3)
@@ -279,7 +278,7 @@ def test_dft_layout_geometry_fuzz(frame_size, n_fft, ent_n_fft):
     rng = np.random.default_rng(frame_size + n_fft + ent_n_fft)
     raw = (rng.standard_normal((32, frame_size)) * 2000).astype(np.float32)
     kw = dict(frame_size=frame_size, hop_size=frame_size // 2,
-              n_fft=n_fft, entropy_n_fft=ent_n_fft, use_pallas=False)
+              n_fft=n_fft, entropy_n_fft=ent_n_fft)
     pm = FeaturePipeline(FeatureConfig(dft_layout="merged", **kw))
     pp = FeaturePipeline(FeatureConfig(dft_layout="pair", **kw))
     fa, fb = pm.features(raw), pp.features(raw)

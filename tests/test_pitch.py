@@ -112,39 +112,6 @@ def test_empty_lag_band_raises_cleanly():
         pitch_track_signal(sig, vad, fmin=30.0, fmax=50.0)
 
 
-def test_pitch_kernel_default_resolution():
-    """``use_kernel=None`` resolves to the fused Pallas path only on the
-    TPU backend with Config.TPU_VIEW_KERNEL on — the CPU suite must run the
-    XLA path by default (no silent interpreter-mode kernels), bit-identical
-    to an explicit ``use_kernel=False``."""
-    import jax
-
-    from sspv_tpu.config import Config
-    from sspv_tpu.ops.pitch import _view_kernel_default, pitch_track_signal
-
-    on_tpu = jax.default_backend() == "tpu"
-    assert _view_kernel_default() == (on_tpu and bool(Config.TPU_VIEW_KERNEL))
-
-    sig = np.random.default_rng(7).normal(0, 2000, 16000).astype(np.float32)
-    vad = np.ones((99,), np.int32)
-    f0_d, conf_d = pitch_track_signal(sig, vad)
-    f0_e, conf_e = pitch_track_signal(
-        sig, vad, use_kernel=on_tpu and bool(Config.TPU_VIEW_KERNEL)
-    )
-    assert np.array_equal(np.asarray(f0_d), np.asarray(f0_e))
-    assert np.array_equal(np.asarray(conf_d), np.asarray(conf_e))
-
-
-def test_view_kernel_gated_off_at_highest_precision():
-    from sspv_tpu.ops.pipeline import FeatureConfig, FeaturePipeline
-
-    # the fused view kernel is 3-pass bf16 (== "high"); a strict f32 pin
-    # must never silently downgrade (selection is also TPU-only, so on the
-    # CPU suite both are False — the precision gate is the assertable bit)
-    hi = FeaturePipeline(FeatureConfig(view_kernel=True, precision="highest"))
-    assert hi._use_view_kernel is False
-
-
 def test_basis_caches_are_mutation_proof():
     from sspv_tpu.ops import bases
 

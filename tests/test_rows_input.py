@@ -4,15 +4,13 @@
 The offline signal programs accept the signal either as raw 1-D samples or
 as the host-formed ``(n+1, hop)`` rows view (``host_rows_view`` — a free
 numpy reshape). The 2-D form exists purely to skip the on-device 1-D→2-D
-relayout copy (docs/benchmarks.md roofline: ~3.7 ms and ~1.8 GB of HBM
-traffic per 4 h call); the downstream arithmetic reads only row contents,
-so every output must be BIT-identical between the two forms. These tests
-pin that contract on the XLA view path (CPU default) and on the fused
-Pallas view kernel (interpret mode), for features and pitch, through both
-the raw jits and the public bucketed dispatchers.
+relayout copy; the downstream arithmetic reads only row contents, so every
+output must be BIT-identical between the two forms. These tests pin that
+contract on the XLA view path, for features and pitch, through both the raw
+jits and the public bucketed dispatchers.
 
 Reference parity context: the signal programs implement the per-frame loop
-of rtvp ``runtime/engine.py:240-311``; the rows view is the TPU-side
+of rtvp ``runtime/engine.py:240-311``; the rows view is the device-side
 layout of the same frames.
 """
 
@@ -145,19 +143,6 @@ def test_rows_input_bitidentical_pitch():
     assert np.array_equal(np.asarray(ca), np.asarray(cb))
 
 
-def test_rows_input_pitch_kernel_interpret():
-    pipe = FeaturePipeline(FeatureConfig())
-    sig = _sig()
-    block, _ = pipe.process_signal_device(sig)
-    vad = np.asarray(block.vad)
-    f0a, ca = pitch_track_signal(sig, vad, use_kernel=True)
-    f0b, cb = pitch_track_signal(
-        pipe.host_rows_view(sig), vad, use_kernel=True
-    )
-    assert np.array_equal(np.asarray(f0a), np.asarray(f0b))
-    assert np.array_equal(np.asarray(ca), np.asarray(cb))
-
-
 def test_rows_input_fused_pitch_equals_two_call():
     # the CLAUDE.md bit-identity invariant, now with both sides on rows
     pipe = FeaturePipeline(FeatureConfig())
@@ -168,16 +153,3 @@ def test_rows_input_fused_pitch_equals_two_call():
     _assert_blocks_equal(blk, b2)
     assert np.array_equal(f0, f2)
     assert np.array_equal(conf, c2)
-
-
-def test_rows_input_view_kernel_interpret_bitidentical():
-    # fused Pallas view kernel (interpret on CPU): rows vs 1-D input.
-    # CPU backend: _use_view_kernel gates on TPU; force it so the suite
-    # exercises the kernel in interpreter mode end-to-end.
-    pipe = FeaturePipeline(FeatureConfig(view_kernel=True))
-    pipe._use_view_kernel = True
-    sig = _sig()
-    state = pipe.initial_state()
-    b1, _ = pipe._signal_jit(jnp.asarray(sig), state)
-    b2, _ = pipe._signal_jit(jnp.asarray(pipe.host_rows_view(sig)), state)
-    _assert_blocks_equal(b1, b2)

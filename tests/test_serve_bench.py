@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The serving benchmark example must run end-to-end on the CPU backend —
-it is the harness behind the HTTP-serving numbers in docs/benchmarks.md."""
+it is the harness for the HTTP-serving numbers."""
 
 import json
 import os

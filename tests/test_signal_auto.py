@@ -111,14 +111,6 @@ def test_num_ceps_clamped_to_num_filters():
     assert np.asarray(block.mfcc).shape[1] == 26
 
 
-def test_view_kernel_gate_uses_resolved_precision():
-    """Spellings that resolve to HIGHEST ('HIGHEST', ' highest ', unknown
-    names) must gate the bf16 view kernel off exactly like 'highest'."""
-    for name in ("HIGHEST", " highest ", "strict-unknown"):
-        pipe = FeaturePipeline(FeatureConfig(precision=name, view_kernel=True))
-        assert not pipe._use_view_kernel, name
-
-
 def test_oversized_signals_share_quantized_programs():
     """Signals beyond the largest bucket quantize to multiples of it (one
     program per quantum, not one exact-length compile per distinct length)

@@ -125,9 +125,9 @@ def test_frame_parity_layout_matches_frames_path():
             rng.normal(0, 1000, n) + 5000 * np.sin(np.arange(n) * 0.05)
         ).astype(np.float32)
         pp = FeaturePipeline(
-            FeatureConfig(view_layout="frame_parity", use_pallas=False)
+            FeatureConfig(view_layout="frame_parity")
         )
-        hp = FeaturePipeline(FeatureConfig(use_pallas=False))
+        hp = FeaturePipeline(FeatureConfig())
         got, gst = pp.process_signal_device(sig, pp.initial_state())
         frames = hp.stream_frames(sig)
         want, wst = hp.process_block(frames, hp.initial_state())
@@ -148,12 +148,12 @@ def test_frame_parity_layout_scan_blocks(monkeypatch):
     valid partition, so scanned output must match the single-block program."""
     sig = make_sig(seed=23)
     pipe_scan = FeaturePipeline(
-        FeatureConfig(view_layout="frame_parity", use_pallas=False)
+        FeatureConfig(view_layout="frame_parity")
     )
     monkeypatch.setattr(pipe_scan, "SCAN_BLOCK_FRAMES", 48)
     got, _ = pipe_scan.process_signal_device(sig)
     pipe_one = FeaturePipeline(
-        FeatureConfig(view_layout="frame_parity", use_pallas=False)
+        FeatureConfig(view_layout="frame_parity")
     )
     want, _ = pipe_one.process_signal_device(sig)
     np.testing.assert_array_equal(np.asarray(got.vad), np.asarray(want.vad))

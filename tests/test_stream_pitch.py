@@ -7,7 +7,7 @@ Contracts:
   same chunking (the fused program must not perturb the feature path);
 - the concatenated F0 bit-matches the offline frames-path track
   (ops/pitch.pitch_track with the Wiener-Khinchin matmul ACF — the
-  MXU-friendly form the fused program compiles; autocorrelation_via_dft's
+  matmul form the fused program compiles; autocorrelation_via_dft's
   parity vs the reference loop is gated in bench.py) on the streaming VAD —
   i.e. chunking and bucket padding are invisible to the pitch decision.
   Confidence is compared at rtol=1e-5: XLA tiles the ACF matmuls per block

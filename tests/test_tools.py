@@ -89,64 +89,6 @@ def test_soak_report_no_frames(tmp_path):
     assert "no frames" in json.loads(out.stdout)["error"]
 
 
-def test_bench_health_gate(monkeypatch, capsys):
-    """The bench's pre-flight device gate: skip knob, healthy fast path, and
-    exhaustion emitting a PARSEABLE failure record (exit 3) — VERDICT r4 #1:
-    an outage must never again produce an empty driver-timeout artifact."""
-    import json as _json
-
-    import bench
-
-    # RTP_BENCH_HEALTH_WAIT_S=0 disables the gate without probing
-    monkeypatch.setenv("RTP_BENCH_HEALTH_WAIT_S", "0")
-    monkeypatch.setattr(
-        bench, "_probe_device_once",
-        lambda *a, **k: (_ for _ in ()).throw(AssertionError("probed")),
-    )
-    bench._wait_for_device_health()
-
-    # healthy first probe: exactly one probe, no sleeping
-    monkeypatch.setenv("RTP_BENCH_HEALTH_WAIT_S", "5400")
-    calls = []
-    monkeypatch.setattr(bench, "_probe_device_once",
-                        lambda *a, **k: calls.append(1) or True)
-    monkeypatch.setattr(
-        bench.time, "sleep",
-        lambda s: (_ for _ in ()).throw(AssertionError("slept")),
-    )
-    bench._wait_for_device_health()
-    assert len(calls) == 1
-
-    # budget exhausted: SystemExit(3) plus a parseable JSON failure record
-    # (value 0 + explicit error field — unmistakably not a measurement)
-    monkeypatch.setenv("RTP_BENCH_HEALTH_WAIT_S", "300")
-    monkeypatch.setattr(bench, "_probe_device_once", lambda *a, **k: False)
-    clock = {"t": 0.0}
-    monkeypatch.setattr(bench.time, "monotonic", lambda: clock["t"])
-    monkeypatch.setattr(
-        bench.time, "sleep", lambda s: clock.__setitem__("t", clock["t"] + s)
-    )
-    import pytest
-
-    with pytest.raises(SystemExit) as e:
-        bench._wait_for_device_health()
-    assert e.value.code == 3
-    out = capsys.readouterr().out.strip().splitlines()
-    rec = _json.loads(out[-1])
-    assert rec["error"] == "device_unavailable"
-    assert rec["value"] == 0.0
-    assert rec["metric"] == "audio_seconds_per_sec_per_chip_frame_mfcc_vad"
-    assert rec["last_known_good"]["driver_verified_r3"] > 0
-
-    # the default budget must sit well inside the driver's capture window
-    # (r4's 5400 s wait outlived it); default comes from the env-less path
-    monkeypatch.delenv("RTP_BENCH_HEALTH_WAIT_S", raising=False)
-    with pytest.raises(SystemExit):
-        bench._wait_for_device_health()
-    rec2 = _json.loads(capsys.readouterr().out.strip().splitlines()[-1])
-    assert rec2["health_budget_s"] <= 900
-
-
 def test_vad_eval_confusion_breakdown():
     """The r5 frame-level confusion attribution in examples/vad_eval.py:
     per-class recall, gate attribution of misses, and hangover-attributed
@@ -205,7 +147,7 @@ def test_vad_eval_confusion_breakdown():
 
 
 def test_soak_stitch_segments(tmp_path):
-    """Recycle-resilient soak stitching (VERDICT r4 #2): per-segment state
+    """Restart-resilient soak stitching: per-segment state
     rows, orphan adoption after a simulated recycle, accumulated steady
     time, and the pooled combined report."""
 
@@ -257,3 +199,48 @@ def test_soak_stitch_segments(tmp_path):
     # both segments leak 0.5 MB/call -> pooled fit must agree
     assert abs(rep["pooled_rss_mb_per_call"] - 0.5) < 0.01
     assert rep["per_segment"][1].get("rc") is None
+
+
+def _roofline():
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "roofline", os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "tools", "roofline.py",
+        ),
+    )
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_roofline_kernel_classes():
+    """Kernel names from an H100 trace of the offline programs land in the
+    right class (the names the GPU trace actually carries)."""
+    rl = _roofline()
+    for name in (
+        "void cutlass::Kernel2<cutlass_80_simt_sgemm_256x128_8x4_nn_align1>",
+        "sm90_xmma_gemm_f32f32_tf32f32_f32_nn_n_tilesize128x128x32",
+        "sm80_xmma_gemm_f32f32_f32f32_f32_nn_n_tilesize64x32x8_stage3",
+    ):
+        assert rl.classify(name) == "matmul", name
+    for name in ("loop_add_fusion", "input_reduce_slice_fusion",
+                 "loop_pad_fusion", "Memset 0", "loop_log_fusion"):
+        assert rl.classify(name) == "other", name
+
+
+def test_roofline_reduction_ignores_host_planes(tmp_path):
+    """A CPU-backend trace has no GPU plane: the reduction reports zero
+    kernel time instead of counting host events."""
+    import jax
+    import jax.numpy as jnp
+
+    rl = _roofline()
+    jax.profiler.start_trace(str(tmp_path))
+    jax.block_until_ready(jnp.ones((64, 64)) @ jnp.ones((64, 64)))
+    jax.profiler.stop_trace()
+    split = rl.reduce_trace(str(tmp_path))
+    assert split["matmul_ms"] == 0.0 and split["other_ms"] == 0.0
+    assert split["top"] == [] and split["lines"] == []

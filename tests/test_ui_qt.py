@@ -2,7 +2,7 @@
 """Execute the Qt UI backend (ui/qt.py) against the real engine using the
 strict stub-Qt harness (tests/qt_stubs.py) — no display or Qt binding needed.
 
-Covers the VERDICT round-1 gap "the Qt backend has never been executed":
+Covers the gap "the Qt backend has never been executed":
 construction, repeated ``_update()`` polls over live engine output,
 ``_build_source()`` for every radio state, start/stop/save handlers, the EOF
 completion prompt, and the ``VisualizationUI`` front door selecting the Qt

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Standalone warmup CLI (sspv_tpu.warmup): pre-compiles program families
 into the shared persistent cache so deployments don't stall on first
-traffic (minutes per cold program on remote-compile hardware)."""
+traffic while each cold program compiles."""
 
 import os
 import subprocess

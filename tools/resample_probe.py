@@ -3,8 +3,8 @@
 
 The batch corpus path decodes files host-side; any non-16 kHz file then pays
 a SciPy FIR pass (``runtime/audio_source.py::_resample_to``) before its
-samples reach the device. ``ops/resample.py`` moves that FIR onto the MXU
-(K shifted row-view matmuls); this probe quantifies when that is worth
+samples reach the device. ``ops/resample.py`` moves that FIR onto the
+device (K shifted row-view matmuls); this probe quantifies when that is worth
 switching on (``RTP_TPU_DEVICE_RESAMPLE=1``):
 
     python tools/resample_probe.py [seconds ...]     # default: 60 600

@@ -1,12 +1,11 @@
 #!/usr/bin/env python3
 """Stitch per-segment soak logs into one cumulative soak record.
 
-VERDICT r4 #2: a host-VM recycle killed the 10.5 h r4 soak at ~135 min and
-took the *process* with it, leaving no way to resume toward the reference's
-24 h claim (rtvp/课程设计论文.md:499-505). The r5 protocol splits a long
-soak into SEGMENTS (tools/run_soak.sh v2): each segment appends a state row
-when it ends, and re-running the same command after a recycle resumes from
-the accumulated state instead of starting over.
+A host restart kills a monolithic soak and its process, leaving no way to
+resume toward the reference's 24 h claim (rtvp/课程设计论文.md:499-505). The
+protocol splits a long soak into SEGMENTS (tools/run_soak.sh): each segment
+appends a state row when it ends, and re-running the same command after a
+restart resumes from the accumulated state instead of starting over.
 
 Modes:
 

@@ -1,15 +1,13 @@
 #!/usr/bin/env python3
 """Micro-benchmark of the streaming-VAD building blocks on the current backend.
 
-The r2 stage ablation (docs/ablation_tpu_r2.jsonl) shows the VAD stage nearly
-doubles the full-pipeline time (features 28.9 ms -> features+VAD 52.7 ms for
-1 h of audio) while doing trivial FLOPs — so the cost must be op count /
-lowering, not arithmetic. The suspects, timed here in isolation at the real
-block shape (SCAN_BLOCK_FRAMES = 32768 frames, history 256):
+The VAD stage does trivial FLOPs, so its cost is op count / lowering, not
+arithmetic. The suspects, timed here in isolation at the real block shape
+(SCAN_BLOCK_FRAMES = 32768 frames, history 256):
 
   conv          jnp.convolve(ext, ones(256), "valid")   (fallback impl)
   reduce_window lax.reduce_window add over a 256 window
-  blocked       two-level block-cumsum sliding sum (12 fused VPU ops)
+  blocked       two-level block-cumsum sliding sum (12 fused elementwise ops)
   matmul        im2col windows @ ones vector (MXU)
   cummax        the hangover associative_scan(max)
   vad_full      the complete streaming_vad stage as shipped
